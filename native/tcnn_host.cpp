@@ -1,9 +1,9 @@
 // tcnn_tpu native host runtime.
 //
-// TPU-native re-design of the reference's host/data path: on GPU the demo
+// Host-side re-design of the reference's data path: the reference demo
 // samples training batches through a CUDA texture with a device-side PCG32
 // stream (reference: samples/mlp_learning_an_image.cu:222-266, random.h:39-87,
-// dependencies/pcg32/pcg32.h). On TPU the host CPU owns batch generation and
+// dependencies/pcg32/pcg32.h). Here the host CPU can own batch generation and
 // image sampling; this module provides those as a C ABI shared library
 // (OpenMP-parallel), bound from Python via ctypes (tcnn_tpu/native.py).
 //

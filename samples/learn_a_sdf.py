@@ -31,9 +31,6 @@ ENCODINGS = {
         "log2_hashmap_size": 17,
         "base_resolution": 8,
         "per_level_scale": 1.5,
-        # fast_input_grads stays at its default (True): the Pallas
-        # input-grad path now carries its own bwd-bwd kernel, so the
-        # eikonal second-order term trains on the fast path too
     },
     "PPNG1": {"otype": "PPNG1", "n_quants": 64, "n_frequencies": 6,
               "n_features": 4, "rank": 4},
@@ -52,22 +49,11 @@ def sdf_true(p):
     return jnp.minimum(sphere, box)
 
 
-def main(argv):
-    otype = argv[1] if len(argv) > 1 else "HashGrid"
-    n_steps = int(argv[2]) if len(argv) > 2 else 2000
-    cfg = {
-        "loss": {"otype": "L2"},
-        "optimizer": {"otype": "Adam", "learning_rate": 3e-3},
-        "encoding": ENCODINGS[otype],
-        "network": {"otype": "FullyFusedMLP", "n_neurons": 64,
-                    "n_hidden_layers": 2},
-    }
-    model = tc.create_from_config(3, 1, cfg)
+def make_train_step(model, batch=1 << 16, eik_weight=0.01):
+    """jit(state) -> (state, loss): one step on a fresh batch of `batch`
+    points, L2 to the true distance plus `eik_weight` times the eikonal
+    term on the first 1024 points (second-order autodiff in the step)."""
     trainer = model.trainer
-    print(f"SDF with {otype}: {model.network.n_params} params")
-
-    batch = 1 << 16
-    eik_weight = 0.01
 
     def loss_fn(params, key):
         xs = jax.random.uniform(key, (batch, 3))
@@ -76,11 +62,10 @@ def main(argv):
         data = jnp.mean((out - d) ** 2)
 
         # eikonal regularizer on a subsample (2nd-order path in training).
-        # prepare_input_gradients=True is REQUIRED for d/dx (the fast
-        # Pallas path's backward only produces input gradients when asked,
-        # same contract as the reference's prepare_input_gradients); the
-        # sum trick gives per-sample grads in ONE batched vjp (outputs are
-        # per-sample independent).
+        # prepare_input_gradients=True is REQUIRED for d/dx (same contract
+        # as the reference's prepare_input_gradients); the sum trick gives
+        # per-sample grads in ONE batched vjp (outputs are per-sample
+        # independent).
         xe = xs[:1024]
 
         def f_batch(pts):
@@ -93,7 +78,7 @@ def main(argv):
         eik = jnp.mean((jnp.linalg.norm(grads, axis=-1) - 1.0) ** 2)
         return data + eik_weight * eik
 
-    def _step(state, key):
+    def step(state):
         k1, k2 = jax.random.split(state["rng"])
         lv, grads = jax.value_and_grad(loss_fn)(state["params"], k1)
         opt_state, params = trainer.optimizer.step(
@@ -101,13 +86,31 @@ def main(argv):
         )
         return {"params": params, "opt": opt_state, "rng": k2}, lv
 
-    opt_step = jax.jit(_step)
+    return jax.jit(step)
+
+
+def sdf_config(otype="HashGrid"):
+    return {
+        "loss": {"otype": "L2"},
+        "optimizer": {"otype": "Adam", "learning_rate": 3e-3},
+        "encoding": ENCODINGS[otype],
+        "network": {"otype": "FullyFusedMLP", "n_neurons": 64,
+                    "n_hidden_layers": 2},
+    }
+
+
+def main(argv):
+    otype = argv[1] if len(argv) > 1 else "HashGrid"
+    n_steps = int(argv[2]) if len(argv) > 2 else 2000
+    model = tc.create_from_config(3, 1, sdf_config(otype))
+    print(f"SDF with {otype}: {model.network.n_params} params")
+    opt_step = make_train_step(model)
 
     state = trainer.state
     t0 = time.time()
     interval = 10
     for step in range(1, n_steps + 1):
-        state, lv = opt_step(state, None)
+        state, lv = opt_step(state)
         if step % interval == 0 or step == n_steps:
             jax.block_until_ready(lv)
             print(f"step {step}: loss {float(lv):.6e} "

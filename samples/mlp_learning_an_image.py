@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""mlp_learning_an_image - the canonical tiny-cuda-nn demo, TPU-native.
+"""mlp_learning_an_image - the canonical tiny-cuda-nn demo.
 
 Port of intent (not code) of samples/mlp_learning_an_image.cu in the
 reference: learn (x, y) -> RGB of an image with random-uniform coordinate

@@ -5,7 +5,7 @@ Compiles the reference's host-compilable device headers
 losses/*.h and optimizers/adam.h __global__ kernels) on the CPU with a
 ~60-line CUDA shim (shim.h), runs them over deterministic inputs, and
 packs everything into tests/golden/golden.npz. tests/test_golden.py then
-asserts the TPU implementation agrees - exactly for integer/hash math,
+asserts the JAX implementation agrees - exactly for integer/hash math,
 fp32-tight elsewhere.
 
 The kernel functions from losses/adam headers are sliced out textually at

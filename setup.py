@@ -1,7 +1,7 @@
 """Wheel build hook: compile the native host runtime into the package.
 
 The reference ships its C++/CUDA runtime through setup.py-driven extension
-builds (bindings/torch/setup.py there); the TPU analog is a plain ctypes
+builds (bindings/torch/setup.py there); the analog here is a plain ctypes
 shared library (native/tcnn_host.cpp - PCG32 stream + OpenMP bilinear
 sampling), compiled here into `tcnn_tpu/libtcnn_host.so` so installed wheels
 carry it. If no C++ toolchain is present the wheel is built pure-Python;

@@ -1,4 +1,4 @@
-"""tcnn_tpu - a TPU-native tiny-neural-network framework.
+"""tcnn_tpu - a tiny-neural-network framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 tiny-cuda-nn (reference: leejaeyong7/tiny-cuda-nn, NVlabs v1.7 fork):

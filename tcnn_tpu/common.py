@@ -1,6 +1,6 @@
 """Core definitions shared across the framework.
 
-TPU-native re-design of the reference's ``common.h`` / ``common_host.h``
+Re-design of the reference's ``common.h`` / ``common_host.h``
 (see /root/reference/include/tiny-cuda-nn/common.h:126-173 for the enums and
 :229-235 for loss-scale / batch-granularity policy). The CUDA memory/stream
 machinery of the reference (GPUMemoryArena, SyncedMultiStream, CudaGraph) is
@@ -10,13 +10,13 @@ captured CUDA graph, and XLA's buffer assignment replaces the memory arena.
 What survives here is the *semantic* policy:
   - enums (Activation, GridType, HashType, InterpolationType, ReductionType)
   - the mixed-precision policy: fp32 "master" params + low-precision compute
-    (bf16 on TPU instead of fp16; same fp32-master design as trainer.h:75)
+    (bf16 instead of fp16; same fp32-master design as trainer.h:75)
   - loss scaling (common.h:229-233) - kept as a knob; bf16 shares fp32's
     exponent range so the default scale matters less than on fp16 hardware,
     but we keep 128.0 for behavioral parity (it divides out exactly).
   - batch-size granularity: the reference requires multiples of 256
-    (common.h:235); on TPU the natural granularity is the 128-wide lane
-    dimension, so we adopt 128 and auto-pad in the user-facing API.
+    (common.h:235); we adopt 128, the fused MLP kernels' row tile, and
+    auto-pad in the user-facing API.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ import numpy as np
 # ---------------------------------------------------------------------------
 
 #: Batch sizes fed to jitted step functions are padded to a multiple of this.
-#: (TPU analog of BATCH_SIZE_GRANULARITY=256, common.h:235 - 128 matches the
-#: TPU lane width and the Pallas batch-tile granularity used by our kernels.)
+#: (analog of BATCH_SIZE_GRANULARITY=256, common.h:235 - 128 is the row
+#: tile of the fused MLP kernels.)
 BATCH_SIZE_GRANULARITY = 128
 
 #: Default loss scale (common.h:229-233 uses 128 for fp16, 1 for fp32; bf16
@@ -138,8 +138,9 @@ def parse_reduction_type(value) -> ReductionType:
 # Precision policy
 # ---------------------------------------------------------------------------
 
-#: TPU network compute precision (the analog of ``network_precision_t``,
-#: common.h:114-124). bf16 feeds the MXU at full rate; masters stay fp32.
+#: Network compute precision (the analog of ``network_precision_t``,
+#: common.h:114-124). bf16 operands with fp32 accumulation; masters stay
+#: fp32.
 COMPUTE_DTYPE = jnp.bfloat16
 PARAM_DTYPE = jnp.float32
 

@@ -3,15 +3,13 @@
 Two models with identical math and parameter layout, mirroring the reference:
 
   - `CutlassMLP` (otype "CutlassMLP"/"MLP"): arbitrary widths, >= 0 hidden
-    layers (src/cutlass_mlp.cu). On TPU this is a chain of XLA matmuls - the
-    MXU plus XLA's epilogue fusion plays the role CUTLASS plays on GPU, so no
-    hand-written kernel is needed for the general-width path.
+    layers (src/cutlass_mlp.cu): a chain of XLA matmuls with the activation
+    fused into each product's epilogue.
   - `FullyFusedMLP` (otype "FullyFusedMLP"): widths {16, 32, 64, 128}
-    (src/fully_fused_mlp.cu:499-632). The hot path is a Pallas kernel that
-    keeps all layer weights resident in VMEM and chains
-    matmul -> activation across layers in one kernel launch per batch tile
-    (ops/pallas/mlp_kernel.py); it falls back to the identical-math XLA path
-    when Pallas is unavailable or shapes are unsupported.
+    (src/fully_fused_mlp.cu:499-632). On a GPU it runs the fused Pallas
+    Triton kernels of ops/pallas/mlp_kernel.py, which chain
+    matmul -> activation across all layers of a row tile without writing
+    hidden activations to device memory; `mlp_route` says when.
 
 Parameter layout (flat fp32, row-major per matrix, matching
 fully_fused_mlp.cu:659-677):
@@ -32,6 +30,8 @@ import numpy as np
 
 from ..common import Activation, COMPUTE_DTYPE
 from ..ops.activations import activation_fn
+from ..ops.pallas.mlp_kernel import fused_mlp_apply
+from ..ops.pallas.mlp_kernel import supports as fused_kernel_supports
 from .base import Network
 
 
@@ -118,7 +118,7 @@ class CutlassMLP(Network):
 
 
 class FullyFusedMLP(CutlassMLP):
-    """Width-restricted MLP accelerated by a VMEM-resident Pallas kernel."""
+    """Width-restricted MLP; fused Triton kernels on a GPU (`mlp_route`)."""
 
     SUPPORTED_WIDTHS = (16, 32, 64, 128)
 
@@ -130,7 +130,6 @@ class FullyFusedMLP(CutlassMLP):
         n_hidden_layers: int = 5,
         activation: Activation = Activation.ReLU,
         output_activation: Activation = Activation.NONE,
-        use_pallas: bool | None = None,
     ):
         if n_neurons not in self.SUPPORTED_WIDTHS:
             raise ValueError(
@@ -148,25 +147,20 @@ class FullyFusedMLP(CutlassMLP):
             activation,
             output_activation,
         )
-        self.use_pallas = use_pallas
+        #: "triton" or "xla", fixed from the config and platform before any
+        #: tracing
+        self.route = mlp_route(self, jax.default_backend())
 
     def apply(self, params, x, *, compute_dtype=COMPUTE_DTYPE,
               second_order=False):
-        use_pallas = self.use_pallas
-        if use_pallas is None:
-            use_pallas = _pallas_supported()
-        if second_order:
-            # the fused kernel's custom_vjp backward is not differentiable
-            # a second time; the XLA matmul path is (and the MLP is a tiny
-            # fraction of grid-model cost)
-            use_pallas = False
-        if use_pallas:
-            from ..ops.pallas.mlp_kernel import fused_mlp_apply
-
-            try:
-                return fused_mlp_apply(self, params, x, compute_dtype=compute_dtype)
-            except NotImplementedError:
-                pass
+        # the fused kernels compute in bf16 and their custom_vjp backward is
+        # not differentiable a second time; the XLA matmul chain does both
+        if (
+            self.route == "triton"
+            and compute_dtype == jnp.bfloat16
+            and not second_order
+        ):
+            return fused_mlp_apply(self, params, x)
         return super().apply(params, x, compute_dtype=compute_dtype)
 
     def hyperparams(self):
@@ -175,8 +169,11 @@ class FullyFusedMLP(CutlassMLP):
         return hp
 
 
-def _pallas_supported() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+def mlp_route(mlp, platform: str) -> str:
+    """Which implementation a FullyFusedMLP runs on `platform` (a JAX
+    backend name): "triton" for the fused Pallas kernels, "xla" for the
+    matmul chain. The kernels compile only for a GPU and cover neither
+    Sine nor hidden widths above 64 (`mlp_kernel.supports`)."""
+    if platform != "gpu" or not fused_kernel_supports(mlp):
+        return "xla"
+    return "triton"

@@ -11,6 +11,8 @@ between two jnp calls here - XLA fuses or materializes it as it sees fit.
 
 from __future__ import annotations
 
+import inspect
+
 import jax
 import numpy as np
 
@@ -64,28 +66,11 @@ class NetworkWithInputEncoding(Network):
         compute_dtype=COMPUTE_DTYPE,
         max_level=None,
         prepare_input_gradients=False,
-        _no_fused_ig=False,
     ):
         """`prepare_input_gradients` mirrors the reference flag
         (network_with_input_encoding.h:70-81): leave False unless gradients
-        w.r.t. `x` are needed - it unlocks the encoding's fast TPU path,
-        whose backward only produces parameter gradients.
-
-        Input-gradient workloads on supported grid+FFMLP configs route to
-        the fused ig megakernel (train_kernel.fused_apply_ig: MLP backward
-        + grid scatter + dL/dx in one kernel; second order falls back to
-        the composed machinery). `_no_fused_ig` is that fallback's
-        re-entry guard."""
-        if (
-            prepare_input_gradients
-            and not _no_fused_ig
-            and max_level is None
-            and jax.default_backend() == "tpu"
-        ):
-            from ..ops.pallas.train_kernel import fused_apply_ig, supported_ig
-
-            if supported_ig(self, compute_dtype):
-                return fused_apply_ig(self, params, x)
+        w.r.t. `x` are needed - it lets the encoding skip its input-gradient
+        work in the backward."""
         net_p, enc_p = self.split_params(params)
         kwargs = {}
         if max_level is not None:
@@ -98,10 +83,8 @@ class NetworkWithInputEncoding(Network):
         net_kwargs = {}
         if prepare_input_gradients:
             # input-gradient callers are the second-order-prone ones
-            # (eikonal etc.); the FFMLP Pallas kernel differentiates once
+            # (eikonal etc.); the fused MLP kernel differentiates once
             # only, so give them the arbitrary-order XLA matmul path
-            import inspect
-
             if "second_order" in inspect.signature(
                 self.network.apply
             ).parameters:

@@ -1,8 +1,8 @@
 """ctypes bindings for the native host runtime (native/tcnn_host.cpp).
 
 The reference's host/data path is C++/CUDA (texture sampling + device PCG32,
-samples/mlp_learning_an_image.cu, random.h); on TPU the host CPU feeds
-batches, so the equivalent runtime is a C++ shared library: deterministic
+samples/mlp_learning_an_image.cu, random.h); where the host CPU feeds
+batches, the equivalent runtime is a C++ shared library: deterministic
 PCG32 batch generation with the reference's exact stream layout, and
 OpenMP-parallel bilinear image sampling.
 

@@ -1,6 +1,6 @@
 """Encoding protocol.
 
-TPU-native replacement of the reference's ``Encoding<T>`` /
+JAX replacement of the reference's ``Encoding<T>`` /
 ``DifferentiableObject`` object model (object.h:121-374, encoding.h:39-73).
 
 The CUDA design threads explicit forward/backward/backward_backward_input

@@ -1,9 +1,8 @@
 """Fixed-function (parameter-free) encodings.
 
-TPU-native implementations of the reference's cheap encodings. These are pure
+JAX implementations of the reference's cheap encodings. These are pure
 jnp - XLA fuses them into neighbouring ops (the CUDA reference needs one
-hand-written kernel each; on TPU the VPU handles them inside the same fusion
-as the consuming matmul's operand preparation). All are differentiable to
+hand-written kernel each). All are differentiable to
 arbitrary order by JAX, subsuming the reference's hand-written backward
 kernels.
 

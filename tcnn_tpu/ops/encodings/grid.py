@@ -1,6 +1,6 @@
 """Multiresolution (hash/tiled/dense) grid encoding - Instant-NGP.
 
-TPU-native re-design of the reference's GridEncodingTemplated
+Re-design of the reference's GridEncodingTemplated
 (/root/reference/include/tiny-cuda-nn/encodings/grid.h:652-1210 and the device
 helpers in common_device.h:631-718). The semantics follow the reference
 exactly - including uint32 wraparound in the dense-index stride loop, the
@@ -9,12 +9,11 @@ hash-only-when-level-overflows rule - but the implementation is a batched jnp
 program instead of a per-thread CUDA kernel:
 
   - forward: vectorized 2^D-corner gather + N-linear/smoothstep interpolation
-    over all levels at once. XLA tiles the gathers; a Pallas gather kernel can
-    be slotted in behind the same interface for the hot path.
-  - backward (table gradients): jax.grad of the gather is a *deterministic*
-    XLA scatter-add - replacing the reference's nondeterministic atomicAdd
-    races (grid.h:214-320, vec.h:300-347). Determinism is required for exact
-    multi-host gradient agreement.
+    over all levels at once.
+  - backward (table gradients): jax.grad of the gather is an XLA
+    scatter-add, the analog of the reference's atomicAdd (grid.h:214-320,
+    vec.h:300-347). On a GPU XLA lowers it to atomics too, so the order of
+    the sum - and the last bits of the gradient - can vary from run to run.
   - input gradients and the double-backward trio
     (grid.h:351-650, backward_backward_input_impl grid.h:902-1026) are
     subsumed by jax.grad-of-grad through the same forward program: the
@@ -82,11 +81,8 @@ def stochastic_uniforms(batch: int, n_levels: int):
     random_val(1337, i + level * B) - fixed per sample index and level,
     shared across dims).
 
-    This is the SINGLE source of corner randomness for all three
-    implementations (XLA path, standalone Pallas backward, fused train
-    kernel): each draws over the TRUE batch via this helper and pads as
-    needed, so the chosen corners - hence gradients - are identical no
-    matter which path dispatch selects.
+    Drawn over the true batch, so the chosen corners - hence gradients -
+    do not depend on how a caller pads or shards the batch beyond it.
     """
     return jax.random.uniform(jax.random.PRNGKey(1337), (batch, n_levels))
 
@@ -110,8 +106,6 @@ class GridEncoding(Encoding):
         stochastic_interpolation: bool = False,
         max_level: float | None = None,
         seed: int = 1337,
-        fast_input_grads: bool = True,
-        warn_binned_drops: bool = False,
     ):
         if n_dims_to_encode not in (2, 3, 4):
             raise ValueError("GridEncoding supports 2, 3, or 4 input dims")
@@ -134,11 +128,6 @@ class GridEncoding(Encoding):
         #: (grid_interface.h:101-123)
         self.max_level = max_level
         self.seed = int(seed)
-        self.fast_input_grads = bool(fast_input_grads)
-        #: opt-in runtime detection of binned-path cap overflow: logs a
-        #: warning per step with a nonzero dropped-pick count (costs one
-        #: scalar D2H per step; see binned_kernel._maybe_warn)
-        self.warn_binned_drops = bool(warn_binned_drops)
 
         # Offset table (grid.h:685-730): per-level sizes, 8-aligned, capped by
         # grid type; all in units of feature *vectors* (not scalars).
@@ -173,67 +162,9 @@ class GridEncoding(Encoding):
         self._resolutions = np.asarray(resolutions, dtype=np.uint32)
         self._scales = np.asarray(scales, dtype=np.float32)
         self._total_table_rows = offset
-        self._kernel_plan_cache = ()  # unset sentinel
-        self._binned_split_cache = ()  # unset sentinel
 
     #: NetworkWithInputEncoding checks this to thread needs_input_grad
     supports_input_grad_opt = True
-
-    # NOTE: ``fast_input_grads`` (kernel_grid_backward_input parity,
-    # grid.h:322-349) is an INSTANCE attribute set by the constructor (or
-    # the "fast_input_grads" JSON key), DEFAULT ON: on TPU,
-    # prepare_input_gradients=True dispatches to the fused Pallas
-    # scatter+input-grad backward (measured 67 ms vs 1259 ms XLA,
-    # config_hash b=2^18), whose backward is ITSELF differentiable via the
-    # bwd-bwd trio kernel (grid.h:351-650 parity) - second-order (eikonal)
-    # training stays on the fast path. THIRD order raises; pass
-    # fast_input_grads=False for the arbitrary-order XLA path.
-
-    def _kernel_plan(self):
-        if self._kernel_plan_cache == ():
-            from ..pallas.grid_kernel import plan_for
-
-            self._kernel_plan_cache = plan_for(self)
-        return self._kernel_plan_cache
-
-    def _binned_split(self):
-        """SplitPlan (dense prefix + binned large-table suffix) for configs
-        beyond the dense kernels' table cap, or None."""
-        if self._binned_split_cache == ():
-            from ..pallas.binned_kernel import split_plan_for
-
-            self._binned_split_cache = split_plan_for(self)
-        return self._binned_split_cache
-
-    def count_binned_drops(self, x) -> int:
-        """Exact dropped-pick count for one batch on the binned
-        (large-table) path - the runtime check behind the docstring's
-        ~2e-11 overflow bound (binned_kernel.py). Returns 0 when the
-        config has no binned suffix. A nonzero count means `x`'s
-        distribution overflowed a superblock cap and that many
-        (sample, corner, level) contributions would be dropped in both
-        the forward and the gradient."""
-        split = self._binned_split()
-        if split is None:
-            return 0
-        from ..pallas.binned_kernel import count_drops
-
-        return count_drops(split, jnp.asarray(x, jnp.float32))
-
-    def _warn_fallback(self):
-        if getattr(self, "_warned_fallback", False):
-            return
-        self._warned_fallback = True
-        if jax.default_backend() == "tpu":
-            from ...log import log_warning
-
-            log_warning(
-                "GridEncoding config "
-                f"(type={self.grid_type.value}, hash={self.hash_type.value}, "
-                f"D={self.n_dims_to_encode}, rows={self._total_table_rows}) "
-                "is not covered by the Pallas TPU kernels; falling back "
-                "to the (much slower) XLA path."
-            )
 
     # -- shape / params -----------------------------------------------------
     @property
@@ -299,76 +230,17 @@ class GridEncoding(Encoding):
         compute_dtype=COMPUTE_DTYPE,
         max_level=None,
         needs_input_grad=True,
-        impl=None,
     ):
         """x: [B, D] fp32 in (roughly) [0, 1]^D -> [B, L*F].
 
         Output dim order is level-major, feature-minor (the reference's SoA
         row order, grid.h:146-148).
 
-        When `needs_input_grad` is False (the composed-model fast path - the
-        analog of the reference's prepare_input_gradients=false,
-        network_with_input_encoding.h:70-81) and the config is supported, the
-        TPU Pallas kernels are used; their backward produces table gradients
-        only (dL/dx is zero on that path by contract). `impl` forces
-        "pallas"/"xla".
+        `needs_input_grad=False` is the analog of the reference's
+        prepare_input_gradients=false (network_with_input_encoding.h:70-81):
+        the stochastic-interpolation backward then skips dL/dx, which is
+        zero on that path by contract.
         """
-        use_pallas = impl == "pallas" or (
-            impl in (None, "auto")
-            and (not needs_input_grad or self.fast_input_grads)
-            and jax.default_backend() == "tpu"
-        )
-        if use_pallas:
-            plan = self._kernel_plan()
-            ig = (
-                needs_input_grad
-                and self.fast_input_grads
-                and self.interpolation != InterpolationType.Nearest
-                and not self.stochastic_interpolation
-                and (max_level is None and self.max_level is None)
-            )
-            if plan is not None:
-                if ig:
-                    from ..pallas.grid_kernel import grid_encode_pallas_ig
-
-                    return grid_encode_pallas_ig(plan, params, x).astype(
-                        compute_dtype
-                    )
-                if not needs_input_grad:
-                    from ..pallas.grid_kernel import grid_encode_pallas
-
-                    y = grid_encode_pallas(plan, params, x).astype(
-                        compute_dtype
-                    )
-                    return self._mask_max_level(y, x.shape[0], max_level)
-            else:
-                # tables beyond the dense kernels' VMEM cap: binned
-                # large-table path (binned_kernel.py)
-                split = self._binned_split()
-                if split is not None and ig:
-                    # input gradients at the reference-default T=2^19 and
-                    # beyond (grid.h:171-211 dy_dx at full kernel speed);
-                    # second-order supported (bwd-bwd combine)
-                    from ..pallas.binned_kernel import grid_encode_split_ig
-
-                    return grid_encode_split_ig(split, params, x).astype(
-                        compute_dtype
-                    )
-                if split is not None and not needs_input_grad:
-                    from ..pallas.binned_kernel import grid_encode_split
-
-                    y = grid_encode_split(split, params, x).astype(
-                        compute_dtype
-                    )
-                    return self._mask_max_level(y, x.shape[0], max_level)
-            if impl == "pallas":
-                raise NotImplementedError(
-                    "grid config unsupported by the Pallas kernel"
-                )
-            if not needs_input_grad:
-                # (input-gradient requests legitimately use the XLA path
-                # unless fast_input_grads is set - don't warn for those)
-                self._warn_fallback()
         if self.stochastic_interpolation:
             return self._apply_stochastic(
                 params, x, compute_dtype, max_level,
@@ -377,18 +249,6 @@ class GridEncoding(Encoding):
         return self._apply_xla(
             params, x, compute_dtype=compute_dtype, max_level=max_level
         )
-
-    def _mask_max_level(self, y, B, max_level):
-        L, F = self.n_levels, self.n_features_per_level
-        ml = max_level if max_level is not None else self.max_level
-        if ml is None:
-            return y
-        ml = jnp.asarray(ml, dtype=jnp.float32)
-        lvl_ids = jnp.arange(L, dtype=jnp.float32)
-        keep = lvl_ids[None, :] < (ml * L + 1e-3).reshape(-1, 1)
-        y = y.reshape(B, L, F)
-        y = jnp.where(keep[..., None], y, 0)
-        return y.reshape(B, L * F)
 
     def _apply_xla(self, params, x, *, compute_dtype=COMPUTE_DTYPE, max_level=None):
         B = x.shape[0]

@@ -176,22 +176,15 @@ class PPNG1Encoding(PPNGBase):
             * self.rank
         )
 
-    # NOTE (round 5, measured dead end): routing PPNG1 through the
-    # dense-ext kernel (raw endpoint picks + jnp lerp/product) runs the
-    # b=2^17 train step at 18.2 ms vs this einsum path's 9.0 ms on v5e -
-    # the 2-nonzero weight-vector einsum below already IS the MXU gather
-    # (with the lerp fused into the matmul), and the dense-ext round trip
-    # only adds picks traffic. Do not re-route.
     def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE, **_):
         B = x.shape[0]
         F, D, C = self.n_frequencies, self.n_dims_to_encode, self.n_features
         Q, R = self.n_quants, self.rank
         p0, p1, w = self._quant_coords(x.astype(jnp.float32))  # [B,F,2,D]
 
-        # MXU-native 1-D lerp: a 2-nonzero interpolation-weight vector over
-        # the Q axis turns the gather into a batched matmul (and its
-        # transpose into the table-gradient scatter under autodiff) - random
-        # gathers are the slowest primitive on TPU (see grid_kernel.py).
+        # 1-D lerp as a 2-nonzero interpolation-weight vector over the Q
+        # axis: the gather becomes a batched matmul (and its transpose the
+        # table-gradient scatter under autodiff)
         K = F * 2 * D
         qi = jnp.arange(Q)[None, None]
         p0f = p0.reshape(B, K, 1)
@@ -231,117 +224,11 @@ class PPNG2Encoding(PPNGBase):
     #: batch chunk for the einsum intermediates ([bc,F,2,C,Q,R] per plane)
     _CHUNK = 16384
 
-    # -- dense-ext fast path (TPU): the 3*F*2 plane tables are small
-    # (Q^2 rows x C*R feats; 4.7 MB bf16 at defaults) and fit VMEM
-    # together, so corner values come from ONE Pallas one-hot-matmul
-    # gather (ops/pallas/dense_ext_kernel.py) and the rank-coupled
-    # 8-corner combine (ppng_2.h:32-72) runs as [B, 384]-shaped jnp -
-    # layout-friendly, unlike the einsum path's [.., C, Q, R]
-    # intermediates whose tiny trailing dims the TPU tiling pads 32x
-    # (measured 8.6 s/step at b=2^17 on v5e; the dense-ext path is the
-    # fix, not just the OOM remat). Gradients: table grads through the
-    # kernel's scatter vjp; x grads through the jnp weight math
-    # (arbitrary order, same contract as PPNG3's binned path). ----------
-
-    def _dense_ext_shape(self):
-        """(n_levels, t_rows, feats) for the dense-ext kernel; level
-        l = d * F2 + (f*2 + s), row = q_row * Q + q_col, feat = c*R + r."""
-        F2 = self.n_frequencies * 2
-        return 3 * F2, self.n_quants * self.n_quants, \
-            self.n_features * self.rank
-
-    def _dense_ext_ok(self) -> bool:
-        from ..pallas.dense_ext_kernel import supported
-
-        if self.n_dims_to_encode != 3:
-            return False
-        nl, t_rows, feats = self._dense_ext_shape()
-        return supported(nl, t_rows, feats)
-
-    def _dense_ext_table(self, params):
-        """params [F,2,3,C,Qr,Qc,R] -> flat [NL * Q^2 * (C*R)] in the
-        dense-ext order (level-major, row-major, feat-minor)."""
-        F, C = self.n_frequencies, self.n_features
-        Q, R = self.n_quants, self.rank
-        t = params.reshape(F, 2, 3, C, Q, Q, R)
-        # (d, f, s, Qr, Qc, C, R)
-        t = t.transpose(2, 0, 1, 4, 5, 3, 6)
-        return t.reshape(-1)
-
-    def _apply_dense_ext(self, params, x, compute_dtype):
-        import jax.numpy as jnp
-
-        from ..pallas.dense_ext_kernel import dense_ext_gather
-
-        B = x.shape[0]
-        F, C = self.n_frequencies, self.n_features
-        Q, R = self.n_quants, self.rank
-        F2 = F * 2
-        NL, t_rows, feats = self._dense_ext_shape()
-        CR = C * R
-        p0, p1, w = self._quant_coords(x.astype(jnp.float32))  # [B,F,2,3]
-        p = jnp.stack([p0, p1], axis=-1)  # [B,F,2,3,2]
-        p = p.reshape(B, F2, 3, 2)  # [B, fs, dim, bit]
-
-        # plane d rows/cols: 0 -> (z, y), 1 -> (z, x), 2 -> (y, x)
-        dims = [(2, 1), (2, 0), (1, 0)]
-        # idx [B, C_corner*NL]: corner c = bit_r*2 + bit_c, level
-        # l = d*F2 + fs, row = p_rd[bit_r]*Q + p_cd[bit_c]
-        cols = []
-        for c in range(4):
-            br, bc = c >> 1, c & 1
-            lvl = []
-            for d, (rd, cd) in enumerate(dims):
-                lvl.append(p[:, :, rd, br] * float(Q) + p[:, :, cd, bc])
-            cols.append(jnp.concatenate(lvl, axis=1))  # [B, NL]
-        idx = jnp.concatenate(cols, axis=1)  # [B, 4*NL]
-
-        picks = dense_ext_gather(NL, t_rows, feats, 4,
-                                 self._dense_ext_table(params), idx)
-        picks = picks.astype(jnp.float32)  # [B, 4*NL*CR]
-
-        def P(d, br, bc):
-            # [B, F2*CR] block for plane d at corner (bit_row, bit_col)
-            c = br * 2 + bc
-            off = (c * NL + d * F2) * CR
-            return jax.lax.dynamic_slice_in_dim(picks, off, F2 * CR, 1)
-
-        def wexp(dim, bit):
-            wd = w.reshape(B, F2, 3)[:, :, dim]
-            wd = wd if bit else 1.0 - wd
-            # [B, F2] -> [B, F2*CR] (repeat each fs over its CR feats)
-            return jnp.repeat(wd, CR, axis=1)
-
-        out = jnp.zeros((B, F2 * CR), jnp.float32)
-        for corner in range(8):
-            a = (corner >> 2) & 1  # x bit (w[...,0])
-            b2 = (corner >> 1) & 1  # y bit (w[...,1])
-            c2 = corner & 1  # z bit (w[...,2])
-            weight = wexp(0, a) * wexp(1, b2) * wexp(2, c2)
-            out = out + weight * (
-                P(0, c2, b2) * P(1, c2, a) * P(2, b2, a)
-            )
-        # rank sum: feat = c*R + r -> [B, F2, C]
-        out = out.reshape(B, F2, C, R).sum(axis=-1)
-        return out.reshape(B, F2 * C).astype(compute_dtype)
-
-    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE,
-                       impl=None, **_):
-        """MXU-native formulation: each plane's 2x2 corner sub-block is
-        extracted with one-hot einsums over the Q axes (gathers are the
-        slowest primitive on TPU - and under autodiff the transposed
-        einsums become matmul scatters, replacing the XLA scatter-add that
-        dominated PPNG2's backward); the 8-corner rank-coupled combine
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE, **_):
+        """Each plane's 2x2 corner sub-block is extracted with one-hot
+        einsums over the Q axes (under autodiff the transposed einsums are
+        the table-gradient scatter); the 8-corner rank-coupled combine
         (ppng_2.h:32-39) then runs on the tiny [.., 2, 2] blocks."""
-        use_pallas = impl == "pallas" or (
-            impl in (None, "auto") and jax.default_backend() == "tpu"
-        )
-        if use_pallas and self._dense_ext_ok():
-            return self._apply_dense_ext(params, x, compute_dtype)
-        if impl == "pallas":
-            raise NotImplementedError(
-                "PPNG2 config unsupported by the dense-ext Pallas path"
-            )
         B = x.shape[0]
         F, C = self.n_frequencies, self.n_features
         Q, R = self.n_quants, self.rank
@@ -397,11 +284,9 @@ class PPNG2Encoding(PPNGBase):
             # bound the per-plane einsum intermediates; pad to a chunk
             # multiple and run chunks sequentially. chunk_fn is
             # REMATERIALIZED: under autodiff, lax.map otherwise stacks
-            # every chunk's einsum residuals ([nb, bc, F, 2, C, R] f32 -
-            # whose trailing (4, 4) dims the TPU (sublane, lane) tiling
-            # pads 32x), which OOMed HBM at b=2^17 on v5e (75 GB of a
-            # 16 GB chip, round-5 receipt). Recomputing the chunk forward
-            # in the backward keeps only [bc, D] inputs per chunk live.
+            # every chunk's einsum residuals ([nb, bc, F, 2, C, R] f32).
+            # Recomputing the chunk forward in the backward keeps only
+            # [bc, D] inputs per chunk live.
             nb = -(-B // self._CHUNK)
             xp = jnp.pad(x, ((0, nb * self._CHUNK - B), (0, 0)))
             out = jax.lax.map(
@@ -421,7 +306,6 @@ class PPNG3Encoding(PPNGBase):
     def __init__(self, n_dims_to_encode: int, **kw):
         kw.setdefault("rank", 1)
         super().__init__(n_dims_to_encode, **kw)
-        self._fast_plan_cache = ()  # unset sentinel
 
     def _validate(self):
         if self.n_features not in (1, 2, 4, 8):
@@ -447,173 +331,7 @@ class PPNG3Encoding(PPNGBase):
             * self.n_features
         )
 
-    # -- binned fast path (the analog of ppng_3.h:476-494's dense-table
-    # CUDA kernels, via binned_kernel's externally-indexed mode) ----------
-
-    def _fast_plan(self):
-        """ext_iw BinnedPlan for the dense Q^D tables, or None.
-
-        One binned "level" per (frequency, phase) pair; t_rows = Q^D.
-        Requires Q % 4 == 0 for the bit premix (below) and the binned
-        machinery's size window [2^14, 2^22]."""
-        if self._fast_plan_cache == ():
-            plan = None
-            t_rows = self.n_quants ** self.n_dims_to_encode
-            if self.n_quants % 4 == 0:
-                from ..pallas.binned_kernel import make_ext_binned_plan
-
-                plan = make_ext_binned_plan(
-                    self.n_frequencies * 2, t_rows, self.n_features,
-                    self.n_dims_to_encode,
-                )
-            self._fast_plan_cache = plan
-        return self._fast_plan_cache
-
-    def _premix_table(self, params):
-        """Level-major flat table with rows in PREMIXED order.
-
-        The binned superblock key is the LOW 7 bits of the row index
-        (binned_kernel._bin_kernel). The natural flat index
-        sum_i p_i * Q^i puts only dim 0 in those bits, and p_0 is
-        arcsine-distributed (the sin-warped quantization, interp.h:41),
-        so clustered batches would pile into few superblocks. The premix
-        re-orders rows as (hi_2, hi_1, hi_0, lo_2, lo_1, lo_0) with
-        lo_i = p_i & 3: the low 6 key bits take 2 bits from EVERY dim.
-        A pure reshape+transpose - no gather - so it costs one XLA copy
-        and transposes back cleanly under vjp."""
-        D, Q, C = self.n_dims_to_encode, self.n_quants, self.n_features
-        F2 = self.n_frequencies * 2
-        H = Q // 4
-        t = params.reshape((F2,) + (H, 4) * D + (C,))
-        hi_axes = tuple(1 + 2 * i for i in range(D))
-        lo_axes = tuple(2 + 2 * i for i in range(D))
-        t = t.transpose((0,) + hi_axes + lo_axes + (1 + 2 * D,))
-        return t.reshape(-1)
-
-    def _pick_iw(self, x):
-        """Per-pick premixed rows and weights in the ext layout:
-        (idx [B, C*NL] f32, cw [B, C*NL] f32), col c*NL + (f*2+s).
-        cw is differentiable in x (through the sin-warped fractional
-        part); idx is piecewise constant."""
-        F, D, C = self.n_frequencies, self.n_dims_to_encode, self.n_features
-        Q = self.n_quants
-        B, NL, H = x.shape[0], F * 2, Q // 4
-        p0, p1, w = self._quant_coords(x.astype(jnp.float32))  # [B,F,2,D]
-        p = jnp.stack([p0, p1], axis=-1).astype(jnp.float32)
-        idx_cols, w_cols = [], []
-        for c in range(1 << D):
-            row = 0.0
-            weight = 1.0
-            for i in range(D):
-                bit = (c >> i) & 1
-                pi = p[..., i, bit]  # [B, F, 2]
-                hi = jnp.floor(pi * 0.25)
-                lo = pi - 4.0 * hi
-                row = row + hi * float(H**i * 4**D) + lo * float(4**i)
-                weight = weight * (w[..., i] if bit else 1.0 - w[..., i])
-            idx_cols.append(row.reshape(B, NL))
-            w_cols.append(weight.reshape(B, NL))
-        return (
-            jnp.concatenate(idx_cols, axis=1),
-            jnp.concatenate(w_cols, axis=1),
-        )
-
-    def _apply_binned(self, params, x, compute_dtype):
-        from ..pallas.binned_kernel import binned_ext_lookup
-
-        bp = self._fast_plan()
-        idx, cw = self._pick_iw(x)
-        y = binned_ext_lookup(bp, self._premix_table(params), idx, cw)
-        return y.astype(compute_dtype)
-
-    # -- dense-ext path (ops/pallas/dense_ext_kernel.py) ------------------
-    #: route PPNG3 through the dense-ext gather when t_rows <= this.
-    #: MEASURED on v5e (train step b=2^17, scripts in PERF.md round 5):
-    #: Q=16 10.9 ms (the binned machinery refuses t_rows < 2^14 - this
-    #: window previously had NO Pallas path), Q=32 45.3 ms vs binned's
-    #: 429, Q=64 (the factory default, 2^18 rows/level) 295 ms vs
-    #: binned's 438 - dense-ext wins the whole window its VMEM budget
-    #: admits, so the threshold is set at that budget's edge and the
-    #: binned path keeps only the beyond-VMEM configs.
-    _DENSE_EXT_MAX_ROWS = 1 << 18
-
-    def _dense_ext_ok(self) -> bool:
-        from ..pallas.dense_ext_kernel import supported
-
-        t_rows = self.n_quants ** self.n_dims_to_encode
-        return t_rows <= self._DENSE_EXT_MAX_ROWS and supported(
-            self.n_frequencies * 2, t_rows, self.n_features
-        )
-
-    def _pick_natural(self, x):
-        """Per-pick NATURAL flat rows (sum_i p_i * Q^i - the parameter
-        layout's own order, no premix) and weights, ext layout
-        (col c*NL + (f*2+s)); cw differentiable in x."""
-        F, D = self.n_frequencies, self.n_dims_to_encode
-        Q = self.n_quants
-        B, NL = x.shape[0], F * 2
-        p0, p1, w = self._quant_coords(x.astype(jnp.float32))  # [B,F,2,D]
-        p = jnp.stack([p0, p1], axis=-1).astype(jnp.float32)
-        idx_cols, w_cols = [], []
-        for c in range(1 << D):
-            row = 0.0
-            weight = 1.0
-            for i in range(D):
-                bit = (c >> i) & 1
-                row = row + p[..., i, bit] * float(Q**i)
-                weight = weight * (w[..., i] if bit else 1.0 - w[..., i])
-            idx_cols.append(row.reshape(B, NL))
-            w_cols.append(weight.reshape(B, NL))
-        return (
-            jnp.concatenate(idx_cols, axis=1),
-            jnp.concatenate(w_cols, axis=1),
-        )
-
-    def _apply_dense_ext(self, params, x, compute_dtype):
-        from ..pallas.dense_ext_kernel import dense_ext_gather
-
-        F, D, C = self.n_frequencies, self.n_dims_to_encode, self.n_features
-        Q = self.n_quants
-        B, NL, CC = x.shape[0], F * 2, 1 << D
-        t_rows = Q**D
-        idx, cw = self._pick_natural(x)
-        # params are ALREADY level-major row-major f-minor in natural order
-        picks = dense_ext_gather(NL, t_rows, C, CC, params, idx)
-        picks = picks.reshape(B, CC, NL * C).astype(jnp.float32)
-        cw_e = jnp.repeat(cw.reshape(B, CC, NL), C, axis=2)
-        return jnp.sum(picks * cw_e, axis=1).astype(compute_dtype)
-
-    def count_binned_drops(self, x) -> int:
-        """Exact dropped-pick count for one batch on the fast path (the
-        GridEncoding.count_binned_drops analog - same signature; drops
-        depend only on the pick indices, not the table); 0 = exact to
-        bf16."""
-        bp = self._fast_plan()
-        if bp is None:
-            return 0
-        from ..pallas.binned_kernel import count_ext_drops
-
-        idx, cw = self._pick_iw(x)
-        return count_ext_drops(bp, idx, cw)
-
-    def apply_unpadded(
-        self, params, x, *, compute_dtype=COMPUTE_DTYPE, impl=None, **_
-    ):
-        use_pallas = impl == "pallas" or (
-            impl in (None, "auto") and jax.default_backend() == "tpu"
-        )
-        if use_pallas:
-            if self._dense_ext_ok():
-                # small tables: VMEM-resident dense-ext gather (covers
-                # the Q<=32 D=3 window the binned machinery refuses)
-                return self._apply_dense_ext(params, x, compute_dtype)
-            bp = self._fast_plan()
-            if bp is not None:
-                return self._apply_binned(params, x, compute_dtype)
-            if impl == "pallas":
-                raise NotImplementedError(
-                    "PPNG3 config unsupported by the Pallas paths"
-                )
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE, **_):
         B = x.shape[0]
         F, D, C = self.n_frequencies, self.n_dims_to_encode, self.n_features
         Q = self.n_quants

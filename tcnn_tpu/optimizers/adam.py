@@ -13,7 +13,7 @@ Mirror of adam_step (/root/reference/include/tiny-cuda-nn/optimizers/adam.h:47-1
     non-matrix enable flags.
 
 The whole update is one fused XLA computation over the flat param vector -
-the TPU analog of the reference's single fused kernel.
+the analog of the reference's single fused kernel.
 """
 
 from __future__ import annotations

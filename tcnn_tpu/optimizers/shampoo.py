@@ -5,7 +5,7 @@ Mirror of ShampooOptimizer
 reference spreads the work over cuBLAS batched GEMMs on forked streams plus
 a host-synchronized coupled-Newton iteration; here the whole update is one
 XLA program - the Gram updates, the inverse-4th-root Newton iterations and
-the preconditioned step are all MXU matmuls inside the jitted train step.
+the preconditioned step are all matmuls inside the jitted train step.
 
 Semantics carried over exactly:
   - streaming-debiased EMAs: alpha/beta pairs from debiased_alpha_beta

@@ -1,18 +1,18 @@
 """Multi-chip data parallelism.
 
 The reference is strictly single-GPU (SURVEY.md 2.9: no distributed backend
-of any kind). This module is the NEW capability the TPU build adds: the
+of any kind). This module is the NEW capability this framework adds: the
 sample/ray batch - the reference's only "long axis" - is sharded across a
-`jax.sharding.Mesh` ('data' axis over ICI/DCN), parameters are replicated,
-and the per-shard parameter gradients are mean-reduced with `psum` inside a
-`shard_map`ped step. XLA's latency-hiding scheduler overlaps the all-reduce
-with the remaining backward computation (the TPU analog of the reference's
-wgrad-on-forked-streams overlap, fully_fused_mlp.cu:784-828).
+1-D `jax.sharding.Mesh` ('data' axis; on one host the cards reach each other
+all to all over NVLink), parameters are replicated, and the per-shard
+parameter gradients are mean-reduced with `pmean` inside a `shard_map`ped
+step, which XLA hands to NCCL. XLA's latency-hiding scheduler overlaps the
+all-reduce with the remaining backward computation (the analog of the
+reference's wgrad-on-forked-streams overlap, fully_fused_mlp.cu:784-828).
 
-Gradient determinism note: because grid-table gradients are XLA scatter-adds
-(not atomics), per-shard gradients are deterministic, and the psum tree makes
-the reduced gradient identical across hosts - enabling the exact multi-host
-gradient-allclose the reference cannot offer.
+Every shard applies the same reduced gradient, so the replicas stay
+identical. The per-shard grid-table gradients are scatter-adds that XLA
+lowers to atomics on a GPU, so their last bits can vary from run to run.
 
 Usage:
     mesh = create_mesh()                     # all visible devices
@@ -109,12 +109,10 @@ class DataParallelTrainer:
                 check_vma=False,
             )(state, inputs, dL_doutput)
 
-        # pdf-less variant keeps pdf=None so the trainer can dispatch to the
-        # fused training kernel inside the shard_map. Steps are jitted
-        # LAZILY, keyed on the trainer's trace-baked knobs (max_level
-        # schedule, fused-kernel scheduling globals) - same retrace
-        # semantics as Trainer._get_jitted, so a knob flip between steps
-        # can't silently keep a stale compiled schedule.
+        # Steps are jitted LAZILY, keyed on the trainer's trace-baked
+        # values (max_level schedule, perturbation sigma) - same retrace
+        # semantics as Trainer._get_jitted, so a change between steps
+        # can't silently keep a stale compiled step.
         self._fns = {
             "step": make_step(True),
             "step_nopdf": make_step(False),
@@ -138,17 +136,11 @@ class DataParallelTrainer:
         return tuple(jax.device_put(a, self._batch_sharded) for a in arrays)
 
     def step(self, state, inputs, targets, pdf=None):
-        # _schedule_ctx: tracing happens on the first dispatch of each
-        # jitted step, so the trainer's per-model Schedule (e.g. persisted
-        # autotune winners) must be live HERE too, not only in
-        # Trainer.training_step - otherwise the sharded step would trace
-        # at module defaults while keying on the schedule's knobs.
-        with self.trainer._schedule_ctx():
-            if pdf is None:
-                inputs, targets = self.shard_batch(inputs, targets)
-                return self._jit_for("step_nopdf")(state, inputs, targets)
-            inputs, targets, pdf = self.shard_batch(inputs, targets, pdf)
-            return self._jit_for("step")(state, inputs, targets, pdf)
+        if pdf is None:
+            inputs, targets = self.shard_batch(inputs, targets)
+            return self._jit_for("step_nopdf")(state, inputs, targets)
+        inputs, targets, pdf = self.shard_batch(inputs, targets, pdf)
+        return self._jit_for("step")(state, inputs, targets, pdf)
 
     def step_external(self, state, inputs, dL_doutput):
         """Training step from a caller-provided dL_doutput (the reference's
@@ -156,6 +148,5 @@ class DataParallelTrainer:
         psum (unnormalized-sum) gradient reduction - external dL_doutput
         carries the caller's own normalization, unlike the loss path's
         per-sample mean. Returns the new state (no loss)."""
-        with self.trainer._schedule_ctx():
-            inputs, dL_doutput = self.shard_batch(inputs, dL_doutput)
-            return self._jit_for("step_ext")(state, inputs, dL_doutput)
+        inputs, dL_doutput = self.shard_batch(inputs, dL_doutput)
+        return self._jit_for("step_ext")(state, inputs, dL_doutput)

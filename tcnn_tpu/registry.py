@@ -141,10 +141,6 @@ def _make_grid(n_dims, cfg):
         stochastic_interpolation=bool(
             cfg_get(cfg, "stochastic_interpolation", False)
         ),
-        # extension key (not in the reference schema): False restores the
-        # arbitrary-order XLA input-gradient path for second-order work
-        fast_input_grads=bool(cfg_get(cfg, "fast_input_grads", True)),
-        warn_binned_drops=bool(cfg_get(cfg, "warn_binned_drops", False)),
     )
 
 

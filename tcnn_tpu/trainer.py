@@ -3,7 +3,7 @@
 Mirror of Trainer<T, PARAMS_T, COMPUTE_T>
 (/root/reference/include/tiny-cuda-nn/trainer.h:47-361). The reference
 CUDA-graph-captures {forward, loss, backward} and launches a fused optimizer
-kernel (trainer.h:163-190); on TPU the *entire* training step - forward,
+kernel (trainer.h:163-190); here the *entire* training step - forward,
 loss, backward, optimizer - is one `jax.jit` program, which is strictly more
 fused (XLA also folds the fp32->bf16 param cast and the loss reduction in).
 
@@ -27,7 +27,6 @@ Feature parity:
 
 from __future__ import annotations
 
-import contextlib
 import json
 
 import jax
@@ -68,141 +67,13 @@ class Trainer:
             "rng": k_rng,
         }
         self._jitted = {}
-        #: per-model fused-kernel schedule (ops.pallas.schedule.Schedule);
-        #: None = the train_kernel module defaults. Applied around every
-        #: traced call, so two Trainers in one process each run (and gate)
-        #: at their own knobs instead of sharing process globals.
-        self.schedule = None
-        # On a TPU backend, adopt the persisted autotune winners for this
-        # (device kind, model plan) if a bench run has recorded them -
-        # users get the tuned schedule without running the autotune (a
-        # round-4 sample measured 2x slower on the module defaults).
-        # Best-effort: any failure keeps the defaults. CPU backends skip
-        # (keeps tests hermetic).
-        try:
-            if jax.default_backend() == "tpu":
-                self.load_schedule()
-        except Exception:  # noqa: BLE001 - never fail construction
-            pass
-
-    def load_schedule(self) -> bool:
-        """Adopt the persisted autotuned schedule for this model on this
-        device kind, if one exists (bench.py saves its autotune winners
-        there). Returns whether one was found."""
-        from .ops.pallas.schedule import load_schedule, model_schedule_key
-
-        sched = load_schedule(
-            jax.devices()[0].device_kind, model_schedule_key(self.model)
-        )
-        if sched is not None:
-            self.schedule = sched
-        return sched is not None
-
-    @contextlib.contextmanager
-    def _schedule_ctx(self):
-        """Apply self.schedule to the train_kernel globals for the scope of
-        a traced call (the kernels read the knobs at trace time); restores
-        the process defaults after. No-op when schedule is None.
-
-        NOT thread-safe: the knobs are module globals, so two trainers
-        with different schedules must not trace concurrently (dispatches
-        of already-compiled steps are unaffected - the knobs are only
-        read at trace time, and every jit cache keys on them). Direct
-        callers of the functional core (train_step_fn etc.) bypass this
-        context and run at the module defaults; wrappers that jit the
-        core themselves (DataParallelTrainer) apply it explicitly."""
-        if self.schedule is None:
-            yield
-            return
-        from .ops.pallas import train_kernel as tk
-
-        saved = (
-            tk.RECOMPUTE_MASKS, tk.FUSED_TILE_DIV, tk.PICK_VARIANT,
-            tk.INFER_VARIANT, tk.INFER_TILE, tk.VT_LOMASK, tk.VT_FL,
-        )
-        s = self.schedule
-        tk.RECOMPUTE_MASKS = s.recompute_masks
-        tk.FUSED_TILE_DIV = s.fused_tile_div
-        tk.PICK_VARIANT = s.pick_variant
-        tk.INFER_VARIANT = s.infer_variant
-        tk.INFER_TILE = s.infer_tile
-        tk.VT_LOMASK = s.vt_lomask
-        tk.VT_FL = s.vt_fl
-        try:
-            yield
-        finally:
-            (
-                tk.RECOMPUTE_MASKS, tk.FUSED_TILE_DIV, tk.PICK_VARIANT,
-                tk.INFER_VARIANT, tk.INFER_TILE, tk.VT_LOMASK, tk.VT_FL,
-            ) = saved
 
     # ------------------------------------------------------------------
     # Functional core (pure; safe to wrap in shard_map / pjit)
     # ------------------------------------------------------------------
-    #: None = auto (fused Pallas train kernel on TPU when the model/loss
-    #: combination supports it); True/False force.
-    use_fused_train_kernel: bool | None = None
-
-    def _fused_env_ok(self) -> bool:
-        """Trainer-level preconditions shared by every fused kernel:
-        opt-out flag, bf16 compute, TPU backend (unless forced on)."""
-        if self.use_fused_train_kernel is False:
-            return False
-        if self.compute_dtype != jnp.bfloat16:
-            return False  # the fused kernels compute in bf16
-        import jax as _jax
-
-        return not (
-            self.use_fused_train_kernel is None
-            and _jax.default_backend() != "tpu"
-        )
-
-    def _fused_kernel_ok(self, pdf=None) -> bool:
-        try:
-            from .ops.pallas.train_kernel import supported
-
-            return self._fused_env_ok() and supported(
-                self.model, self.loss_fn, self.perturbation_sigma
-            )
-        except Exception:
-            return False
-
-    def _fused_infer_ok(self) -> bool:
-        """The forward-only kernel's own gate (train_kernel.supported_infer):
-        its VMEM envelope differs from the train kernel's (no gtable, masks
-        transient) and its tile is the process-global INFER_TILE (autotuned
-        per-model), so a model that passes the train gate can overflow at
-        the inference tile and vice versa."""
-        try:
-            from .ops.pallas.train_kernel import supported_infer
-
-            return self._fused_env_ok() and supported_infer(self.model)
-        except Exception:
-            return False
-
     def loss_and_grad_fn(self, params, inputs, targets, pdf, rng):
         """Returns (loss_value, grads); grads carry loss_scale (reference
         convention; the optimizer divides it back out)."""
-        if self._fused_kernel_ok(pdf):
-            # single-kernel grid+MLP+loss+backward path (train_kernel.py)
-            from .ops.pallas.train_kernel import fused_train_grads
-
-            noise = None
-            if self.perturbation_sigma > 0:
-                # same rng/formula as the composed path below, precomputed
-                # and added to the prediction inside the kernel
-                out_pad = self.model.padded_output_width
-                u = jax.random.uniform(
-                    rng, (inputs.shape[0], out_pad),
-                    minval=1e-6, maxval=1.0 - 1e-6,
-                )
-                noise = self.perturbation_sigma * jnp.log(u / (1.0 - u))
-            total, grads = fused_train_grads(
-                self.model, self.loss_fn, params, inputs, targets,
-                self.loss_scale, pdf=pdf, noise=noise,
-            )
-            return total, grads
-
         def f(p):
             out = self.model.apply(p, inputs, compute_dtype=self.compute_dtype)
             if self.perturbation_sigma > 0:
@@ -221,16 +92,6 @@ class Trainer:
 
     def external_grad_fn(self, params, inputs, dL_doutput):
         """Backward from a caller-provided dL_doutput (trainer.h:127-131)."""
-        if self._fused_kernel_ok():
-            from .ops.pallas.train_kernel import fused_train_grads
-
-            _, grads = fused_train_grads(
-                self.model, self.loss_fn, params, inputs,
-                dL_doutput.astype(jnp.float32), self.loss_scale,
-                ext_dl=True,
-            )
-            return grads
-
         def f(p):
             return self.model.apply(p, inputs, compute_dtype=self.compute_dtype)
 
@@ -265,11 +126,11 @@ class Trainer:
         as a per-launch runtime value (grid.h:236-240).
 
         max_level is keyed by the DERIVED number of active levels, not the
-        raw float: every consumer (`_mask_max_level`, the fused kernel's
-        `_level_active`) only reads `level < max_level*L + 1e-3`, so floats
-        with the same active-level count compile to semantically identical
-        programs. A continuous coarse-to-fine schedule therefore retraces
-        at most n_levels+1 times instead of once per distinct float."""
+        raw float: every consumer (`_mask_max_level`) only reads
+        `level < max_level*L + 1e-3`, so floats with the same active-level
+        count compile to semantically identical programs. A continuous
+        coarse-to-fine schedule therefore retraces at most n_levels+1 times
+        instead of once per distinct float."""
         enc = getattr(self.model, "encoding", self.model)
         ml = getattr(enc, "max_level", None)
         if ml is None:
@@ -277,33 +138,7 @@ class Trainer:
         else:
             L = int(getattr(enc, "n_levels", 1))
             ml_key = sum(1 for l in range(L) if l < float(ml) * L + 1e-3)
-        # fused-kernel scheduling knobs are read at trace time (the
-        # per-trainer schedule when set, else the module globals); keying
-        # on them makes a knob flip (tuning sweeps) retrace instead of
-        # silently keeping the old schedule
-        from .ops.pallas import binned_kernel as _bk
-        from .ops.pallas import train_kernel as _tk
-
-        knobs = (
-            self.schedule.as_tuple()
-            if self.schedule is not None
-            else (
-                _tk.RECOMPUTE_MASKS, _tk.FUSED_TILE_DIV, _tk.PICK_VARIANT,
-                _tk.INFER_VARIANT, _tk.INFER_TILE, _tk.VT_LOMASK, _tk.VT_FL,
-            )
-        )
-        # trace-time globals NOT covered by Schedule (sweep/ablation knobs
-        # + the ig kernel's tile divisor): without them a live flip would
-        # silently reuse the stale compiled step (ABLATE in particular
-        # produces intentionally-truncated outputs)
-        globals_key = (
-            _tk.VT_OH, _tk.VT_PICK, _tk.IG_TILE_DIV, _tk.ABLATE,
-            _tk.VT_PIPELINE,
-        )
-        return (
-            (ml_key, self.perturbation_sigma)
-            + knobs + globals_key + (_bk.A_LOOP,)
-        )
+        return (ml_key, self.perturbation_sigma)
 
     def _get_jitted(self, name, fn, **jit_kwargs):
         key = (name, self._trace_baked_key())
@@ -319,28 +154,27 @@ class Trainer:
         """Run one step; updates self.state; returns loss as a device scalar
         (read it lazily - forcing it each step adds a device sync, which the
         reference also warns about, trainer.h:205-207)."""
-        with self._schedule_ctx():
-            if dL_doutput is not None:
-                step = self._get_jitted(
-                    "train_ext",
-                    lambda s, i, g: self.train_step_fn(s, i, None, None, g),
-                    donate_argnums=(0,),
-                )
-                self.state, loss_value = step(self.state, inputs, dL_doutput)
-            elif pdf is not None:
-                step = self._get_jitted(
-                    "train_pdf",
-                    lambda s, i, t, p: self.train_step_fn(s, i, t, p),
-                    donate_argnums=(0,),
-                )
-                self.state, loss_value = step(self.state, inputs, targets, pdf)
-            else:
-                step = self._get_jitted(
-                    "train",
-                    lambda s, i, t: self.train_step_fn(s, i, t),
-                    donate_argnums=(0,),
-                )
-                self.state, loss_value = step(self.state, inputs, targets)
+        if dL_doutput is not None:
+            step = self._get_jitted(
+                "train_ext",
+                lambda s, i, g: self.train_step_fn(s, i, None, None, g),
+                donate_argnums=(0,),
+            )
+            self.state, loss_value = step(self.state, inputs, dL_doutput)
+        elif pdf is not None:
+            step = self._get_jitted(
+                "train_pdf",
+                lambda s, i, t, p: self.train_step_fn(s, i, t, p),
+                donate_argnums=(0,),
+            )
+            self.state, loss_value = step(self.state, inputs, targets, pdf)
+        else:
+            step = self._get_jitted(
+                "train",
+                lambda s, i, t: self.train_step_fn(s, i, t),
+                donate_argnums=(0,),
+            )
+            self.state, loss_value = step(self.state, inputs, targets)
         return loss_value
 
     @property
@@ -416,67 +250,14 @@ class Trainer:
         return float(jnp.sum(ctx["loss_values"]))
 
     def inference(self, inputs):
-        """fp32 output trimmed to n_output_dims (object.h:147-179).
-
-        Round-3: the single-kernel grid+MLP forward
-        (train_kernel.fused_forward) now beats the composed Pallas
-        kernels (25.0 vs 28.0 ms at batch 2^18 on v5e, post the wide
-        index-math rework); the analog of
-        kernel_mlp_fused<INFERENCE=true> (fully_fused_mlp.cu:499-557).
-        Falls back to the composed apply when the model/config is not
-        fused-kernel shaped."""
-        enc = getattr(self.model, "encoding", None)
-        with self._schedule_ctx():
-            if (
-                self._fused_infer_ok()
-                and getattr(enc, "max_level", None) is None
-            ):
-                from .ops.pallas.train_kernel import (
-                    fused_forward_prepared,
-                    prepare_forward,
-                )
-
-                # prepared operands (packed table + bf16 weights) are
-                # cached by identity of the SOURCE buffers inference_params
-                # derives from (master params + optimizer-state leaves):
-                # repeated inference skips the per-call repack (~2 ms at
-                # config_hash) AND, for custom-weights optimizers
-                # (EMA/Average/Lookahead), the eager custom_weights
-                # compute - whose fresh output array would never hit an
-                # identity cache keyed on the derived value. Any training
-                # step replaces both params and opt leaves (donated
-                # buffers), so identity invalidates exactly when needed.
-                srcs = (self.state["params"],) + tuple(
-                    jax.tree_util.tree_leaves(self.state["opt"])
-                )
-                knobs = self._trace_baked_key()  # W0 perm follows variant
-                cached = getattr(self, "_infer_prepared", None)
-                if (
-                    cached is None
-                    or cached[1] != knobs
-                    or len(cached[0]) != len(srcs)
-                    or any(a is not b for a, b in zip(cached[0], srcs))
-                ):
-                    prep = self._get_jitted(
-                        "inference_prepare",
-                        lambda p: prepare_forward(self.model, p),
-                    )(self.inference_params)
-                    cached = (srcs, knobs, prep)
-                    self._infer_prepared = cached
-                fn = self._get_jitted(
-                    "inference_fused",
-                    lambda pr, i: fused_forward_prepared(
-                        self.model, pr, i
-                    )[:, : self.model.n_output_dims].astype(jnp.float32),
-                )
-                return fn(cached[2], inputs)
-            fn = self._get_jitted(
-                "inference",
-                lambda p, i: self.model.apply(
-                    p, i, compute_dtype=self.compute_dtype
-                )[:, : self.model.n_output_dims].astype(jnp.float32),
-            )
-            return fn(self.inference_params, inputs)
+        """fp32 output trimmed to n_output_dims (object.h:147-179)."""
+        fn = self._get_jitted(
+            "inference",
+            lambda p, i: self.model.apply(
+                p, i, compute_dtype=self.compute_dtype
+            )[:, : self.model.n_output_dims].astype(jnp.float32),
+        )
+        return fn(self.inference_params, inputs)
 
     # ------------------------------------------------------------------
     # Hyperparams / checkpointing
@@ -544,16 +325,22 @@ class Trainer:
 
     # -- orbax backend (sharded/async-capable checkpoints for multi-host) --
     def save_orbax(self, path: str) -> None:
-        """Checkpoint the full training state with orbax (the TPU-native
-        format: works with sharded multi-host state, unlike the JSON
-        snapshot which gathers to host)."""
-        import orbax.checkpoint as ocp
-
-        with ocp.StandardCheckpointer() as ckptr:
+        """Checkpoint the full training state with orbax (works with sharded
+        multi-host state, unlike the JSON snapshot which gathers to host)."""
+        with _orbax_checkpointer() as ckptr:
             ckptr.save(path, self.state, force=True)
 
     def load_orbax(self, path: str) -> None:
-        import orbax.checkpoint as ocp
-
-        with ocp.StandardCheckpointer() as ckptr:
+        with _orbax_checkpointer() as ckptr:
             self.state = ckptr.restore(path, self.state)
+
+
+def _orbax_checkpointer():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "save_orbax/load_orbax need the orbax-checkpoint package "
+            "(pip install orbax-checkpoint)"
+        ) from e
+    return ocp.StandardCheckpointer()

@@ -1,16 +1,16 @@
-"""Persistent XLA compilation cache helper (SURVEY.md 5.1 adjunct).
+"""Persistent XLA compilation cache: the one place that sets it.
 
-The reference pays its kernel compilation at C++ build time; here the
-analog cost is XLA/Mosaic compilation at first trace, which for the
-big-table (T=2^19) binned kernels is minutes cold. JAX's persistent
-compilation cache amortizes that across processes (measured ~40% off the
-binned forward's second-process compile; small-config steps become
-near-instant). bench.py and the TPU test tier enable it privately; this
-makes the same lever a one-liner for users:
+A cold process compiles every jitted step (tens of seconds for a training
+step with fused kernels); JAX's persistent compilation cache keeps the
+compiled programs across processes. Scripts, benchmarks and the test
+harness call `enable_compilation_cache()` and set no cache of their own:
 
     import tcnn_tpu as tc
-    tc.enable_compilation_cache()          # ~/.cache/tcnn_tpu/jax
-    tc.enable_compilation_cache("/ssd/x")  # custom location
+    tc.enable_compilation_cache()
+
+The directory is `$JAX_COMPILATION_CACHE_DIR` when that is set (JAX reads
+it itself, and no other directory is set), else `.jax_cache` at the root
+of the checkout this package lives in.
 """
 
 from __future__ import annotations
@@ -19,26 +19,27 @@ import os
 
 import jax
 
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
-def enable_compilation_cache(cache_dir: str | None = None,
-                             min_compile_secs: float = 2.0) -> str:
-    """Turn on JAX's persistent compilation cache for this process.
 
-    cache_dir defaults to ``$XDG_CACHE_HOME/tcnn_tpu/jax`` (or
-    ``~/.cache/tcnn_tpu/jax``). Compiles faster than
-    ``min_compile_secs`` are not persisted (they're cheaper to redo than
-    to deserialize). Returns the directory used. Safe to call more than
-    once; the last call wins.
-    """
-    if cache_dir is None:
-        base = os.environ.get(
-            "XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache")
-        )
-        cache_dir = os.path.join(base, "tcnn_tpu", "jax")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update(
-        "jax_persistent_cache_min_compile_time_secs", float(min_compile_secs)
+def cache_dir() -> str:
+    """The directory `enable_compilation_cache` uses."""
+    if os.environ.get(ENV_VAR):
+        return os.environ[ENV_VAR]
+    checkout = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     )
-    return cache_dir
+    return os.path.join(checkout, ".jax_cache")
+
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache for this process and
+    return its directory. Compiles faster than 2 s are not persisted
+    (cheaper to redo than to read back)."""
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    return path

@@ -76,9 +76,7 @@ def build_quad_table(image):
     """[H, W, C] -> [H*W, 4*C] where row (y*W + x) holds the 4 edge-clamped
     bilinear corner pixels (x,y), (x+1,y), (x,y+1), (x+1,y+1).
 
-    One random gather per sample instead of four: XLA's TPU gather cost is
-    per-index (measured ~0.2 G rows/s on v5e), so fetching all corners in a
-    single 4C-wide row is ~4x faster. 4x memory (HBM is plentiful)."""
+    One random gather per sample instead of four, at 4x the memory."""
     image = jnp.asarray(image)
     right = jnp.concatenate([image[:, 1:], image[:, -1:]], axis=1)
     down = jnp.concatenate([image[1:], image[-1:]], axis=0)
@@ -92,9 +90,7 @@ def build_quad_table_packed(image):
     [H*W, 3] uint32: row (y*W + x) holds the 4 edge-clamped bilinear corner
     pixels as 12 rgb888 bytes packed little-endian into 3 u32 words.
 
-    XLA's TPU gather cost is per-ELEMENT (~0.55 G elements/s measured on
-    v5e, scripts/probe_r4_glue2.py), so fetching 3 u32 words per sample is
-    ~4x cheaper than the 12-fp32 `build_quad_table` row. Exactness: the
+    A third of the bytes of the 12-fp32 `build_quad_table` row. Exactness: the
     reference trains against an 8-bit texture (uchar4 normalized - the
     cudaCreateTextureObject setup in samples/mlp_learning_an_image.cu), so
     u8 is the reference protocol, not an approximation; `load_image`
@@ -109,7 +105,7 @@ def build_quad_table_packed(image):
     downright = jnp.concatenate([down[:, 1:], down[:, -1:]], axis=1)
     q = jnp.concatenate([u8, right, down, downright], axis=-1)  # [H, W, 12]
     q = q.reshape(-1, 3, 4)  # 4 consecutive bytes per u32 word
-    # little-endian byte packing (TPU + all supported hosts are LE)
+    # little-endian byte packing (all supported devices and hosts are LE)
     w32 = q.astype(jnp.uint32)
     packed = (
         w32[..., 0]

@@ -1,13 +1,17 @@
 """Performance observability (SURVEY.md 5.1).
 
 The reference's observability is throughput printouts + allocation byte
-counts; the TPU equivalents here are a step timer with samples/s and an
-optional jax.profiler trace capture for xprof/tensorboard.
+counts; the equivalents here are a step timer with samples/s, a
+jax.profiler trace capture, and `device_time` which reduces such a trace
+to the device's busy time and the time of each kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import glob
+import os
 import time
 
 import jax
@@ -64,3 +68,45 @@ def trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_time(logdir: str, device_prefix: str = "/device:GPU:") -> dict:
+    """Reduce the newest trace under `logdir` to device metrics.
+
+    Returns {"window_ns", "busy_ns", "idle_share", "kernels_ns"}: the span
+    from the first to the last device event, the union of the intervals in
+    which any event runs on a device plane, 1 - busy/window, and the summed
+    device duration per event (kernel) name, largest first."""
+    from jax.profiler import ProfileData
+
+    paths = glob.glob(
+        os.path.join(logdir, "plugins", "profile", "*", "*.xplane.pb")
+    )
+    data = ProfileData.from_file(max(paths, key=os.path.getmtime))
+    intervals = []
+    kernels = collections.Counter()
+    for plane in data.planes:
+        if not plane.name.startswith(device_prefix):
+            continue
+        for line in plane.lines:
+            for ev in line.events:
+                intervals.append((ev.start_ns, ev.end_ns))
+                kernels[ev.name] += ev.duration_ns
+    if not intervals:
+        raise ValueError(f"no {device_prefix} events in the trace at {logdir}")
+    intervals.sort()
+    busy, (cur_s, cur_e) = 0, intervals[0]
+    for s_, e_ in intervals[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    window = intervals[-1][1] - intervals[0][0]
+    return {
+        "window_ns": window,
+        "busy_ns": busy,
+        "idle_share": 1.0 - busy / window,
+        "kernels_ns": dict(kernels.most_common()),
+    }

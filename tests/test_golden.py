@@ -4,9 +4,9 @@ tests/golden/golden.npz is generated by scripts/golden/gen_golden.py, which
 compiles the reference's host-compilable device headers (hashes, grid_index,
 pos_fract, SH, quartic CDF, all 9 loss kernels, adam_step, nlinear_interp)
 on the CPU and runs them over deterministic inputs. These tests assert the
-TPU implementation agrees - EXACTLY for integer/hash math, fp32-tight for
+JAX implementation agrees - EXACTLY for integer/hash math, fp32-tight for
 real-valued math. This converts "re-derived, believed exact" into
-"verified exact" (VERDICT r1 item 3; BASELINE.md 'matching CUDA semantics').
+"verified exact" (BASELINE.md 'matching CUDA semantics').
 """
 
 import pathlib

@@ -363,7 +363,7 @@ def test_stochastic_interpolation_backward():
 
 
 def test_stochastic_max_level_masks_gradients():
-    """ADVICE r1 (medium): with stochastic_interpolation + max_level, the
+    """With stochastic_interpolation + max_level, the
     clamped levels must receive ZERO table gradients (the reference kernel
     early-returns for level > max_level, grid.h:236-243) - the stochastic
     custom_vjp must mask the cotangent itself."""
@@ -395,13 +395,28 @@ def test_stochastic_max_level_masks_gradients():
 
 
 def test_stochastic_corners_consistent_across_paths():
-    """ADVICE r1 (low): all stochastic implementations must draw the SAME
-    per-(sample, level) corner uniforms (one shared helper over the true
-    batch), so gradients don't change when dispatch switches path."""
+    """The stochastic backward scatters each (sample, level) gradient into
+    the corner chosen by the shared `stochastic_uniforms` draws
+    (grid.h:287: corner bit d = u < w_d): the rows it picks equal the rows
+    derived in numpy from the same draws, so any path that uses the helper
+    over the true batch chooses the same corners."""
     from tcnn_tpu.ops.encodings.grid import stochastic_uniforms
-    from tcnn_tpu.ops.pallas.grid_kernel import stochastic_u_padded
 
-    u_ref = np.asarray(stochastic_uniforms(37, 5))
-    u_pad = np.asarray(stochastic_u_padded(37, 64, 5))
-    np.testing.assert_array_equal(u_ref, u_pad[:37])
-    assert np.all(u_pad[37:] >= 1.0)  # padded rows pick corner 0 harmlessly
+    enc = GridEncoding(2, n_levels=5, n_features_per_level=2,
+                       log2_hashmap_size=8, base_resolution=4,
+                       per_level_scale=1.7, stochastic_interpolation=True)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0.05, 0.95, (37, 2)).astype(np.float32)
+    u = np.asarray(stochastic_uniforms(37, 5))
+    np.testing.assert_array_equal(u, np.asarray(stochastic_uniforms(37, 5)))
+    assert np.all((u >= 0) & (u < 1))
+    rows = np.asarray(enc._stochastic_corner_rows(jnp.asarray(x)))
+    for lvl in range(5):
+        pos = x * enc._scales[lvl] + np.float32(0.5)
+        cell = np.floor(pos)
+        bits = (u[:, lvl, None] < (pos - cell)).astype(np.uint32)
+        chosen = (cell.astype(np.uint32) + bits)[:, None, None, :]
+        want = np.asarray(enc._grid_indices(jnp.asarray(
+            np.broadcast_to(chosen, (37, 5, 1, 2)).copy())))[:, lvl, 0]
+        np.testing.assert_array_equal(
+            rows[:, lvl], int(enc._offsets[lvl]) + want)

@@ -18,7 +18,7 @@ F32 = jnp.float32
 
 def test_param_count_matches_reference_layout():
     # fully_fused_mlp.cu:659-677: [W x in] + (H-1)[W x W] + [pad_out x W]
-    mlp = FullyFusedMLP(32, 3, n_neurons=64, n_hidden_layers=2, use_pallas=False)
+    mlp = FullyFusedMLP(32, 3, n_neurons=64, n_hidden_layers=2)
     assert mlp.padded_output_width == 16
     assert mlp.n_params == 64 * 32 + 64 * 64 + 16 * 64
     assert mlp.layer_sizes() == [(64, 32), (64, 64), (16, 64)]

@@ -179,7 +179,7 @@ def test_orbax_checkpoint_roundtrip(tmp_path):
 
 
 def test_max_level_schedule_takes_effect_without_invalidate():
-    """ADVICE r1 (low): max_level is baked in at trace time; the jit cache
+    """max_level is baked in at trace time; the jit cache
     key must include it so a coarse-to-fine schedule (mutating
     encoding.max_level between steps via update_hyperparams) actually
     changes the compiled step - the reference treats max_level as a
@@ -227,32 +227,3 @@ def test_reference_format_half_snapshot_roundtrip():
 
     with pytest.raises(ValueError, match="float or __half"):
         m2.trainer.deserialize({"params_type": "double", "params_binary": []})
-
-
-def test_ema_prepared_inference_cache_hits():
-    """The fused-inference prepared-operand cache keys on the SOURCE
-    buffers (params + opt-state leaves), so EMA's fresh custom_weights
-    array per call can't defeat it (round-4 advisor): repeated inference
-    reuses the prepared operands; a training step invalidates them."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg = dict(CONFIG)
-    cfg["encoding"] = dict(CONFIG["encoding"], n_levels=4,
-                           log2_hashmap_size=10)
-    cfg["optimizer"] = {"otype": "EMA", "decay": 0.9,
-                        "nested": CONFIG["optimizer"]}
-    m = tc.create_from_config(2, 3, cfg)
-    tr = m.trainer
-    tr.use_fused_train_kernel = True  # force the fused gate on CPU
-    x = jax.random.uniform(jax.random.PRNGKey(7), (256, 2))
-    t = _target(x)
-    with pltpu.force_tpu_interpret_mode():
-        tr.training_step(x, t)
-        o1 = np.asarray(tr.inference(x))
-        c1 = tr._infer_prepared
-        assert c1 is not None
-        np.testing.assert_allclose(np.asarray(tr.inference(x)), o1)
-        assert tr._infer_prepared is c1  # hit: no repack, no re-EMA
-        tr.training_step(x, t)
-        tr.inference(x)
-        assert tr._infer_prepared is not c1  # new params -> refresh

@@ -1,4 +1,4 @@
-"""Golden loss-trajectory regression test (TODO r1 item 13; VERDICT r1 #7).
+"""Golden loss-trajectory regression test.
 
 A fixed-seed 60-step training run on the CPU composed path must reproduce
 the recorded loss trajectory (tests/golden/trajectory.npz) to float
